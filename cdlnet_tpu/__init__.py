@@ -1,6 +1,6 @@
-"""cdlnet_tpu — TPU-native convolutional dictionary learning (CDLNet) framework.
+"""cdlnet_tpu — convolutional dictionary learning (CDLNet) framework in JAX.
 
-A from-scratch JAX/XLA/Pallas rebuild of the capabilities of
+A from-scratch JAX/XLA rebuild of the capabilities of
 RQLuo/CDLNet-video (reference layout documented in SURVEY.md): interpretable
 image/video denoising via K-iteration unrolled ISTA (LISTA) over learned
 convolutional dictionaries, with noise-adaptive soft thresholds.
@@ -8,7 +8,6 @@ convolutional dictionaries, with noise-adaptive soft thresholds.
 Layers (see SURVEY.md §7):
   core/     pure math primitives (pad, ST, prox, power method, gabor, wavelets)
   ops/      conv/conv-transpose with reference semantics + lista_unroll scans
-  kernels/  Pallas fused ISTA kernels (VMEM-resident codes)
   models/   CDLNet, CDLNetVideo, GDLNet, CDLNet_CSR(f2), DnCNN, FFDNet
   nle/      blind noise-level estimation (MAD, PCA)
   data/     image/video/fastMRI pipelines, noise, synthetic fixtures

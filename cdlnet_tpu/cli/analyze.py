@@ -43,27 +43,7 @@ def build_argparser():
     p.add_argument("--save_dir", type=str, default=None)
     p.add_argument("--color", action="store_true")
     p.add_argument("--demosaic", action="store_true")
-    p.add_argument("--backend", type=str, default="auto",
-                   choices=["auto", "pallas", "xla"],
-                   help="Compute backend: 'auto' uses the fused Pallas "
-                        "kernels on TPU and XLA on CPU (no reference "
-                        "counterpart; shared by all analyzers).")
     return p
-
-
-def apply_backend(ARGS, model_args: dict) -> dict:
-    """Resolve --backend into the model config (models.base.resolve_backend);
-    families without a fused path are left untouched."""
-    from cdlnet_tpu.models.base import resolve_backend
-
-    choice = getattr(ARGS, "backend", "auto")
-    if choice == "auto" and "backend" in model_args.get("model", {}):
-        return model_args  # the config pinned one explicitly
-    be = resolve_backend(model_args["type"], choice)
-    if be is not None:
-        model_args = dict(model_args)
-        model_args["model"] = dict(model_args["model"], backend=be)
-    return model_args
 
 
 def resolve_noise_levels(ARGS, model_args):
@@ -250,7 +230,6 @@ def main(ARGS, model_args):
     from cdlnet_tpu.data.images import get_data_loader
     from cdlnet_tpu.train.fit import init_model
 
-    model_args = apply_backend(ARGS, model_args)
     model, params, _, _, _, _ = init_model(model_args)
     # DnCNN-family params stay bundled as (params, state); test() unpacks
 

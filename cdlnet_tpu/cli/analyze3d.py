@@ -230,11 +230,9 @@ def passthrough(model, params, video_path, noise_std, save_dir, blind, color, de
 
 def main(ARGS, model_args):
     setup_compilation_cache()
-    from cdlnet_tpu.cli.analyze import apply_backend
     from cdlnet_tpu.data.video import get_video_loader
     from cdlnet_tpu.train.fit import init_model
 
-    model_args = apply_backend(ARGS, model_args)
     model, params, _, _, _, _ = init_model(model_args)
 
     save_dir = ARGS.save_dir or model_args["paths"]["save"]

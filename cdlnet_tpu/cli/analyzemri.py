@@ -169,11 +169,9 @@ def passthrough_csr(model, params, mtype, video_path, noise_std, save_dir,
 def main(ARGS, model_args):
     setup_compilation_cache()
     from cdlnet_tpu.cli import analyze3d
-    from cdlnet_tpu.cli.analyze import apply_backend
     from cdlnet_tpu.data.fastmri import get_fastmri_data_loader
     from cdlnet_tpu.train.fit import init_model
 
-    model_args = apply_backend(ARGS, model_args)
     model, params, _, _, _, _ = init_model(model_args)
     mtype = model_args["type"]
     is_video = mtype == "CDLNetVideo"

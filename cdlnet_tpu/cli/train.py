@@ -108,8 +108,7 @@ def main(args: dict):
 
 
 def cli():
-    """Console entry point (cdlnet-train). Args.json schema + an optional
-    --backend override (same surface as the analyzers' flag)."""
+    """Console entry point (cdlnet-train): train from an args.json."""
     import argparse
 
     p = argparse.ArgumentParser(
@@ -117,24 +116,9 @@ def cli():
         description="Train from a reference-schema args.json.",
     )
     p.add_argument("arg_file", help="path/to/args.json (reference schema)")
-    p.add_argument(
-        "--backend", choices=["auto", "pallas", "xla"], default=None,
-        help="override model.backend from the config (families without a "
-        "backend field ignore the flag)",
-    )
     a = p.parse_args()
     with open(a.arg_file) as f:
         args = json.load(f)
-    if a.backend is not None:
-        # same resolution as the analyzers: "auto" resolves to a concrete
-        # backend (pallas on accelerators), families without the knob are
-        # left untouched. setup_compilation_cache() FIRST: resolution reads
-        # jax.default_backend(), and the platform override (CDLNET_PLATFORM)
-        # must land before that first backend initialization
-        from cdlnet_tpu.cli.analyze import apply_backend
-
-        setup_compilation_cache()
-        args = apply_backend(a, args)
     pprint(args)
     main(args)
 

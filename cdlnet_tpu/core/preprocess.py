@@ -48,8 +48,9 @@ def pre_process(x: jnp.ndarray, stride: int, mask=None):
 def post_process(x: jnp.ndarray, params):
     """Invert pre_process: unpad then re-add the mean.
 
-    The optimization_barrier defends against a TPU-XLA miscompilation
-    observed on this platform (2026-08, tools/probe_xla_const_fusion.py):
+    The optimization_barrier defends against an XLA miscompilation observed
+    on the accelerator this system was first built for (2026-08,
+    tools/probe_xla_const_fusion.py; run the probe on any new device):
     fusing [transpose(x) - CONSTANT]^2 -> reduce reads the embedded
     constant with a permuted layout, so e.g.
     jit(lambda: mean((model_output - closed_over_target)**2)) silently

@@ -5,8 +5,8 @@ Used only at model init for spectral normalization of the initial dictionary
 
 Implementation note: the iteration runs as a host loop around a jitted
 single step rather than one big lax.while_loop — compiling a 200-iteration
-while_loop whose body contains large 3D conv pairs is pathologically slow on
-some TPU toolchains, while the step compiles once and the host-side
+while_loop whose body contains large 3D conv pairs was pathologically slow
+on some toolchains, while the step compiles once and the host-side
 convergence check matches the reference's per-iteration |e_new - e_old| < tol
 early stop exactly.
 """

@@ -6,9 +6,4 @@ from cdlnet_tpu.dist.sharding import (
     subband_shardings,
 )
 from cdlnet_tpu.dist.halo import halo_exchange, sharded_lista_3d_forward
-from cdlnet_tpu.dist.halo_fused import (
-    fused_depth_shard_supported,
-    sharded_fused_3d_train_forward,
-    sharded_lista_3d_fused_forward,
-)
-from cdlnet_tpu.dist.init import initialize_distributed, make_hybrid_mesh
+from cdlnet_tpu.dist.init import initialize_distributed

@@ -3,8 +3,8 @@
 The sequence-parallel analogue for this architecture (SURVEY.md §2.5/§5):
 video clips are sharded along the frame axis across a mesh axis; every
 strided Conv3d / ConvTranspose3d exchanges only the boundary frames its
-kernel support needs via lax.ppermute rings over ICI, so arbitrarily long
-videos stream through fixed per-chip memory.
+kernel support needs via lax.ppermute rings, so arbitrarily long
+videos stream through fixed per-card memory.
 
 Index math (depth axis; kernel kd, pad pd = kd//2, stride s, local block of
 Dl frames at global offset o = s*oz, local codes Dzl = Dl/s):

@@ -1,13 +1,11 @@
-"""Multi-process / multi-slice runtime initialization.
+"""Multi-process runtime initialization.
 
-The reference is a single process on one GPU (train.py:15-16, job.sbatch);
-here scale-out crosses three tiers:
-  - one chip: no init needed;
-  - one slice, many hosts: jax.distributed.initialize (coordinator via env
-    or args) so jax.devices() sees the whole slice over ICI;
-  - many slices: hybrid mesh with the slow axis over DCN — put ONLY
-    data-parallelism on the DCN axis (gradient all-reduce amortizes over a
-    full step) and keep halo/subband axes on ICI.
+The reference is a single process on one GPU (train.py:15-16, job.sbatch).
+Here one process drives every card of a host, so no init is needed there;
+several processes (one per host, or one per card) call
+jax.distributed.initialize with an explicit coordinator so jax.devices()
+sees every card. Cards of one host are joined all to all, so the mesh
+(dist/mesh.make_mesh) is flat and follows the algorithm alone.
 """
 
 from __future__ import annotations
@@ -20,8 +18,8 @@ import jax
 def initialize_distributed(coordinator_address=None, num_processes=None,
                            process_id=None, local_device_ids=None):
     """Idempotent jax.distributed.initialize with env fallbacks
-    (COORDINATOR_ADDRESS / NUM_PROCESSES / PROCESS_ID, else the TPU
-    auto-bootstrap). No-op for single-process runs with no env config."""
+    (COORDINATOR_ADDRESS / NUM_PROCESSES / PROCESS_ID). No-op for
+    single-process runs with no env config."""
     coordinator_address = coordinator_address or os.environ.get("COORDINATOR_ADDRESS")
     num_processes = num_processes or _int_env("NUM_PROCESSES")
     process_id = process_id if process_id is not None else _int_env("PROCESS_ID")
@@ -39,34 +37,3 @@ def initialize_distributed(coordinator_address=None, num_processes=None,
 def _int_env(name):
     v = os.environ.get(name)
     return int(v) if v is not None else None
-
-
-def make_hybrid_mesh(ici_spec: dict, dcn_axis: str = "replica"):
-    """Mesh spanning multiple slices: `dcn_axis` indexes slices (data
-    parallelism over DCN), ici_spec axes partition within each slice.
-
-    Example: 2 slices of 4 chips, ici_spec={"data": 2, "depth": 2} ->
-    Mesh(axes=("replica", "data", "depth"), shape=(2, 2, 2)).
-    """
-    from jax.experimental import mesh_utils
-    from jax.sharding import Mesh
-
-    names = [dcn_axis] + list(ici_spec.keys())
-    slices = {getattr(d, "slice_index", 0) for d in jax.devices()}
-    n_slices = max(len(slices), 1)
-    per_slice = len(jax.devices()) // n_slices
-    import math
-
-    sizes = list(ici_spec.values())
-    if sizes.count(-1) == 1:
-        known = math.prod(s for s in sizes if s != -1)
-        sizes[sizes.index(-1)] = per_slice // known
-    if n_slices > 1:
-        devices = mesh_utils.create_hybrid_device_mesh(
-            mesh_shape=[1] + sizes,
-            dcn_mesh_shape=[n_slices] + [1] * len(sizes),
-            devices=jax.devices(),
-        )
-    else:
-        devices = mesh_utils.create_device_mesh([1] + sizes)
-    return Mesh(devices.reshape([n_slices] + sizes), axis_names=tuple(names))

@@ -3,9 +3,9 @@
 The reference is single-device (train.py:15-16); scaling out is a from-
 scratch subsystem here (SURVEY.md §2.5): a config mesh spec like
 {"data": 4, "depth": 2} becomes a jax.sharding.Mesh whose axes the train
-step and the halo-sharded forward consume by name. Collectives ride ICI —
-they are inserted by XLA (DP grad psum) or expressed as ppermute rings
-(depth halos); user code never sees them.
+step and the halo-sharded forward consume by name. Collectives are
+inserted by XLA (DP grad psum) or expressed as ppermute rings (depth
+halos); user code never sees them.
 """
 
 from __future__ import annotations

@@ -1,14 +1,13 @@
 """Data-parallel training: batch-dim sharding over a named mesh axis.
 
 Params are replicated, batches sharded along axis 0; jit + NamedSharding
-makes XLA insert the gradient all-reduce over ICI. This is the primary
+makes XLA insert the gradient all-reduce. This is the primary
 scale-out axis for training throughput (SURVEY.md §2.5 DP row).
 """
 
 from __future__ import annotations
 
 import jax
-import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 
@@ -51,88 +50,6 @@ def subband_shardings(params: dict, mesh: Mesh, axis: str = "model") -> dict:
             spec = P()
         out[k] = NamedSharding(mesh, spec)
     return out
-
-
-def shard_map_forward(mesh: Mesh, fn, axis: str = "data", sigma_spec=None):
-    """Wrap a forward `fn(params, y, sigma, mask) -> xhat` in shard_map over
-    the batch dim — REQUIRED for backend="pallas" models under a mesh.
-
-    GSPMD cannot partition Mosaic kernels: compiling any pallas_call inside
-    a multi-device jit raises NotImplementedError("Mosaic kernels cannot be
-    automatically partitioned. Please wrap the call in a shard_map.")
-    (jax/_src/tpu_custom_call.py — both the ShardingContext num_devices!=1
-    and the partial-manual SPMDAxisContext branches). It does not silently
-    replicate; it refuses to compile. So under a mesh the fused-kernel
-    forward runs inside jax.shard_map: the batch splits over `axis`, params
-    replicate, and each device runs the unmodified single-device kernel on
-    its local shard — per-shard numerics are bit-identical to the unsharded
-    call, and autodiff through shard_map psums the replicated-param
-    cotangents (the DP grad all-reduce) automatically.
-
-    Mosaic additionally requires manual_axes == ALL mesh axes, which
-    shard_map satisfies (every axis is manual; non-batch axes see replicated
-    inputs/outputs). Consequence: tensor-parallel subband sharding CANNOT
-    compose with the fused kernels — the kernels contract over the full M
-    internally. TP runs on backend="xla" (docs/parallelism.md).
-
-    sigma handling: None is dropped; scalars replicate; per-sample arrays
-    shard with the batch but must be UNAMBIGUOUSLY per-sample — shaped
-    (N, 1, ...) broadcastable against y (the models' convention, see
-    data/noise.awgn) or exactly y-shaped. A bare (N,)-shaped array is
-    rejected: its leading dim coinciding with the batch size cannot be told
-    apart from a broadcast-intended vector, and silently sharding it would
-    hand each device a wrong sigma slice. Pass sigma_spec (a PartitionSpec)
-    to override the inference outright. mask (when given) is batch-shaped
-    and shards with y. Callers guarantee y.shape[0] % mesh.shape[axis] == 0
-    (fit enforces it for train batches; ragged eval/serve batches fall back
-    to an XLA-backend forward).
-    """
-    from jax import shard_map
-
-    def _infer_sigma_spec(sig, y):
-        if sigma_spec is not None:
-            return sigma_spec
-        if sig.ndim == 0:
-            return P()
-        per_sample = (
-            sig.ndim == y.ndim
-            and sig.shape[0] == y.shape[0]
-            and all(d == 1 or d == yd for d, yd in zip(sig.shape[1:], y.shape[1:]))
-        )
-        if per_sample:
-            return P(axis)
-        if sig.shape[0] == y.shape[0]:
-            raise ValueError(
-                f"ambiguous sigma shape {sig.shape} for batch {y.shape}: "
-                "reshape per-sample sigmas to (N, 1, ...) matching y's rank, "
-                "or pass an explicit sigma_spec"
-            )
-        return P()
-
-    def forward(params, y, sigma=None, mask=None):
-        args = [params, y]
-        specs = [jax.tree_util.tree_map(lambda _: P(), params), P(axis)]
-        has_sig = sigma is not None
-        if has_sig:
-            sig = jnp.asarray(sigma)
-            args.append(sig)
-            specs.append(_infer_sigma_spec(sig, y))
-        has_mask = mask is not None
-        if has_mask:
-            args.append(mask)
-            specs.append(P(axis))
-
-        def body(p, yl, *rest):
-            sl = rest[0] if has_sig else None
-            ml = rest[-1] if has_mask else None
-            return fn(p, yl, sl, ml)
-
-        return shard_map(
-            body, mesh=mesh, in_specs=tuple(specs), out_specs=P(axis),
-            check_vma=False,
-        )(*args)
-
-    return forward
 
 
 def make_dp_train_step(model, opt, loss_fn, mesh: Mesh, axis: str = "data"):

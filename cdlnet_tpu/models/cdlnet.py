@@ -33,9 +33,8 @@ class CDLNet:
     C: int = 1
     t0: float = 0.0
     adaptive: bool = False
-    # implementation knobs (not part of the reference config schema)
+    # implementation knob (not part of the reference config schema)
     scan_unroll: int = 1
-    backend: str = "xla"  # "xla" | "pallas"
 
     @property
     def pad(self) -> int:
@@ -88,43 +87,10 @@ class CDLNet:
             return_codes=return_codes,
         )
 
-    def apply(self, params: dict, y, sigma=None, mask=None, return_z=True,
-              train=False):
-        """Denoise batch y (N, C, H, W). Returns (xhat, z).
-
-        backend="pallas" picks the best-fitting fused path
-        (kernels/routing.route_lista2d): the whole-K VMEM-resident kernel,
-        else the banded big-image kernels, else the XLA scan. With
-        return_z=False the chosen path is differentiable (custom VJPs,
-        kernels/autodiff.py) and z comes back as None. The fused
-        VJPs produce PARAMETER gradients only: cotangents w.r.t. the
-        input y / sigma / mask are zero by construction — for saliency,
-        input optimization, or nested differentiation use backend="xla".
-        train=True (set by the training step) picks a path whose REVERSE
-        kernel also fits: the whole-image reverse for training crops, the
-        banded whole-reverse-resident kernel
-        (kernels/lista2d_tiled_bwd) for big lane-aligned crops, else the
-        XLA scan — the VJP's internal XLA-gradient fallback would re-run
-        the forward and lose to plain XLA end-to-end
-        (see routing.route_lista2d).
-        NB on the
-        banded path (big images) the returned z carries bfloat16 rounding
-        (~0.5% vs the fp32-exact whole-image path) — code-statistics work
-        across mixed image sizes should use backend="xla".
-        """
+    def apply(self, params: dict, y, sigma=None, mask=None):
+        """Denoise batch y (N, C, H, W). Returns (xhat, z)."""
         yp, prm, mask = pre_process(y, self.s, mask=mask)
         c = sigma_scale(sigma, self.adaptive, 4)
-        if self.backend == "pallas":
-            from cdlnet_tpu.kernels.routing import route_lista2d
-
-            out = route_lista2d(
-                yp, params["A"], params["B"], params["t"], c,
-                M=self.M, C=self.C, P=self.P, s=self.s, K=self.K,
-                mask=mask, return_z=return_z, train=train,
-            )
-            if out is not None:
-                xphat, z = out
-                return post_process(xphat, prm), z
         z = self._lista(params, yp, c, mask)
         xphat = conv_transpose2d(
             z, params["B"][0], stride=self.s, padding=self.pad, output_padding=self.s - 1

@@ -41,7 +41,6 @@ class CDLNetVideo:
     depth: int = 3  # clip depth used for power-method init only
     residual: bool = False
     scan_unroll: int = 1
-    backend: str = "xla"
 
     def __post_init__(self):
         if isinstance(self.P, int):
@@ -108,141 +107,10 @@ class CDLNetVideo:
             return_codes=return_codes,
         )
 
-    def _pallas_path(self, params, yp, return_z, train=False):
-        """Which pallas path this call takes: "fused" (whole-frame pair /
-        resident kernels), "tiled" (banded big-frame, inference only), or
-        None (XLA scan)."""
-        if self.backend != "pallas":
-            return None
-        from cdlnet_tpu.kernels.lista3d import lista3d_fused_supported
-
-        D, H, W = yp.shape[-3], yp.shape[-2], yp.shape[-1]
-        if train and not return_z:
-            # a training step: only worthwhile when the fp32-history
-            # forward AND the reverse kernels fit — the custom-VJP's
-            # XLA-gradient fallback re-runs the XLA forward inside the
-            # backward and loses to plain XLA end-to-end. Big frames
-            # (beyond the reference's 128^2-crop protocol) train on XLA.
-            if params.get("residual") is not None:
-                return None
-            from cdlnet_tpu.kernels.autodiff import (
-                lista3d_bigframe_train_path,
-                lista3d_train_supported,
-            )
-
-            if lista3d_train_supported(
-                self.M, self.C, self.P, self.s, self.K, D, H, W
-            ):
-                return "fused"
-            big = lista3d_bigframe_train_path(
-                self.M, self.C, self.P, self.s, self.K, D, H, W
-            )
-            if big is not None:
-                # big-frame training (beyond the reference's 128^2-crop
-                # protocol): ring-merged reverse where it fits, else the
-                # banded pair reverse (one routing site, autodiff)
-                return "ring_train" if big == "ring" else "tiled_train"
-            return None
-        if lista3d_fused_supported(
-            self.M, self.C, self.P, self.s, self.K, D, H, W,
-            residual=params.get("residual"),
-        ):
-            return "fused"
-        import os
-
-        from cdlnet_tpu.kernels.lista3d_ring import lista3d_ring_supported
-
-        if os.environ.get("CDLNET_LISTA3D_RING", "1") != "0" and (
-            lista3d_ring_supported(
-                self.M, self.C, self.P, self.s, self.K, D, H, W,
-                residual=params.get("residual"),
-            )
-        ):
-            # depth-ring merged kernel: ~2.8x less HBM traffic per
-            # iteration than the banded pair path on the same frames
-            return "ring"
-        from cdlnet_tpu.kernels.lista3d_tiled import lista3d_tiled_supported
-
-        if lista3d_tiled_supported(
-            self.M, self.C, self.P, self.s, self.K, D, H, W,
-            residual=params.get("residual"),
-        ):
-            return "tiled"
-        return None
-
-    def apply(self, params: dict, y, sigma=None, mask=None, return_z=True,
-              train=False):
-        """Denoise clip batch y (N, C, D, H, W). Returns (xhat, z).
-
-        backend="pallas" (inference only) runs each iteration as fused
-        synthesis-residual / analysis-threshold kernels with the code
-        carried in bfloat16 (kernels/lista3d; ~0.5% code deviation,
-        <0.05 dB PSNR), falling back to the XLA scan for residual-block
-        variants and unsupported shapes. train=True additionally requires
-        the fused reverse kernels to fit (see _use_pallas).
-        """
+    def apply(self, params: dict, y, sigma=None, mask=None):
+        """Denoise clip batch y (N, C, D, H, W). Returns (xhat, z)."""
         yp, prm, mask = pre_process_3d(y, self.s, mask=mask)
         c = sigma_scale(sigma, self.adaptive, 5)
-        path = self._pallas_path(params, yp, return_z, train=train)
-        if path in ("ring", "tiled"):
-            # banded big-frame inference (DAVIS-native / fastMRI-native
-            # frames the fused gate rejects); parameter gradients are not
-            # implemented here — big-frame training takes the XLA path
-            from cdlnet_tpu.kernels.autodiff import (
-                _RETURN_Z_HINT,
-                nondifferentiable,
-            )
-
-            if path == "ring":
-                from cdlnet_tpu.kernels.lista3d_ring import (
-                    lista3d_ring as big_frame_fn,
-                )
-            else:
-                from cdlnet_tpu.kernels.lista3d_tiled import (
-                    lista3d_tiled as big_frame_fn,
-                )
-
-            xphat, z = nondifferentiable(
-                lambda yp, A, B, t, c: big_frame_fn(
-                    yp, A, B, t, c, stride=self.s, mask=mask,
-                    return_z=return_z),
-                _RETURN_Z_HINT,
-            )(yp, params["A"], params["B"], params["t"], c)
-            return post_process_3d(xphat, prm), z
-        if path in ("ring_train", "tiled_train"):
-            from cdlnet_tpu.kernels.autodiff import (
-                lista3d_ring_diff,
-                lista3d_tiled_diff,
-            )
-
-            diff_fn = (lista3d_ring_diff if path == "ring_train"
-                       else lista3d_tiled_diff)
-            xphat = diff_fn(
-                yp, params["A"], params["B"], params["t"], c,
-                stride=self.s, mask=mask,
-            )
-            return post_process_3d(xphat, prm), None
-        if path == "fused":
-            if not return_z:
-                from cdlnet_tpu.kernels.autodiff import lista3d_fused_diff
-
-                xphat = lista3d_fused_diff(
-                    yp, params["A"], params["B"], params["t"], c,
-                    stride=self.s, mask=mask,
-                )
-                return post_process_3d(xphat, prm), None
-            from cdlnet_tpu.kernels.autodiff import (
-                _RETURN_Z_HINT,
-                nondifferentiable,
-            )
-            from cdlnet_tpu.kernels.lista3d import lista3d_fused
-
-            xphat, z = nondifferentiable(
-                lambda yp, A, B, t, c: lista3d_fused(
-                    yp, A, B, t, c, stride=self.s, mask=mask, return_z=True),
-                _RETURN_Z_HINT,
-            )(yp, params["A"], params["B"], params["t"], c)
-            return post_process_3d(xphat, prm), z
         z = self._lista(params, yp, c, mask)
         xphat = conv_transpose3d(
             z, params["B"][0], stride=self.s, padding=self.pad, output_padding=self.s - 1

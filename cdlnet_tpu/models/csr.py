@@ -16,7 +16,6 @@ frames with carried codes — see scan_denoise_video / the analyzers
 
 from __future__ import annotations
 
-import functools
 from dataclasses import dataclass
 
 import jax
@@ -80,7 +79,6 @@ class CDLNetCSR:
     t0: float = 0.0
     adaptive: bool = False
     scan_unroll: int = 1
-    backend: str = "xla"  # "xla" | "pallas" (fused CSR prox; differentiable)
 
     @property
     def pad(self) -> int:
@@ -108,105 +106,11 @@ class CDLNetCSR:
             z, w, stride=self.s, padding=self.pad, output_padding=self.s - 1
         )
 
-    def apply(self, params: dict, y, z_prev=None, sigma=None, mask=None,
-              return_z=True,  # accepted for cross-model signature parity
-              train=False):
+    def apply(self, params: dict, y, z_prev=None, sigma=None, mask=None):
         """Denoise one frame batch (N, C, H, W), optionally carrying the
-        previous frame's sparse code. Returns (xhat, z).
-
-        backend="pallas" runs the whole K-loop in the fused VMEM-resident
-        kernel: the first-frame branch is the standard kernel over the
-        (A2, B2, t2) bank (B2[0] is never used in the loop and the final
-        dictionary is always the primary B[0], model/net.py:460, so the
-        synthesis bank is spliced as [B[0], B2[1:]]); the recurrent branch
-        passes z_prev + the gamma bank for the in-kernel prox_CSR.
-        train=True runs the FULLY fused training path when the reverse
-        kernel fits VMEM (autodiff.csr_fused_2d_train: fused forward with
-        prox-argument histories + the hand-written prox-mode reverse;
-        gradients flow to the params AND through the carried codes), else
-        the XLA scan. Native-resolution eval frames the resident kernel
-        rejects (fastMRI 640x368 via analyzemri) run the BANDED pair
-        kernels with the CSR prox in-kernel (kernels/lista2d_tiled;
-        inference-only — returned codes carry bf16 rounding, ~0.5%)."""
+        previous frame's sparse code. Returns (xhat, z)."""
         yp, prm, mask = pre_process(y, self.s, mask=mask)
         c = sigma_scale(sigma, self.adaptive, 4)
-
-        if self.backend == "pallas":
-            from cdlnet_tpu.kernels.lista2d import (
-                lista2d_bwd_supported,
-                lista2d_fused_supported,
-            )
-
-            n_codes = 0 if z_prev is None else 1
-            fwd_ok = lista2d_fused_supported(
-                self.M, self.C, self.P, self.s, self.K,
-                yp.shape[-2], yp.shape[-1], return_z=True, n_codes=n_codes,
-                hist=train,
-            )
-            run = None
-            if train and fwd_ok and lista2d_bwd_supported(
-                self.M, self.C, self.P, self.s, self.K,
-                yp.shape[-2], yp.shape[-1], n_codes=n_codes,
-            ):
-                from cdlnet_tpu.kernels.autodiff import csr_fused_2d_train
-
-                run = functools.partial(csr_fused_2d_train, stride=self.s)
-            elif not train and fwd_ok:
-                from cdlnet_tpu.kernels.autodiff import csr_fused_2d
-
-                run = functools.partial(csr_fused_2d, stride=self.s)
-            if run is not None:
-                if z_prev is None:
-                    Bk = jnp.concatenate(
-                        [params["B"][:1], params["B2"][1:]], axis=0
-                    )
-                    xphat, z = run(yp, params["A2"], Bk, params["t2"], c,
-                                   mask=mask)
-                else:
-                    xphat, z = run(yp, params["A"], params["B"], params["t"],
-                                   c, mask=mask, g=params["g"],
-                                   z_prev=z_prev)
-                return post_process(xphat, prm), z
-            if not train:
-                # native-resolution eval frames (fastMRI 640x368 through
-                # analyzemri's csr_inference_loop) exceed the resident
-                # kernel's VMEM: run the banded pair kernels with the CSR
-                # prox, neighbor codes banded alongside (inference only —
-                # codes carry bf16 rounding, ~0.5%, like CDLNet's banded
-                # path)
-                from cdlnet_tpu.kernels.lista2d_tiled import (
-                    lista2d_tiled,
-                    lista2d_tiled_supported,
-                )
-
-                if lista2d_tiled_supported(
-                    self.M, self.C, self.P, self.s, self.K,
-                    yp.shape[-2], yp.shape[-1], n_codes=n_codes,
-                ):
-                    from cdlnet_tpu.kernels.autodiff import (
-                        _RETURN_Z_HINT,
-                        nondifferentiable,
-                    )
-
-                    if z_prev is None:
-                        Bk = jnp.concatenate(
-                            [params["B"][:1], params["B2"][1:]], axis=0
-                        )
-                        xphat, z = nondifferentiable(
-                            lambda yp, A, B, t, c: lista2d_tiled(
-                                yp, A, B, t, c, stride=self.s, mask=mask,
-                                return_z=True),
-                            _RETURN_Z_HINT,
-                        )(yp, params["A2"], Bk, params["t2"], c)
-                    else:
-                        xphat, z = nondifferentiable(
-                            lambda yp, A, B, t, c, g, zp: lista2d_tiled(
-                                yp, A, B, t, c, stride=self.s, mask=mask,
-                                return_z=True, g=g, z_prev=zp),
-                            _RETURN_Z_HINT,
-                        )(yp, params["A"], params["B"], params["t"], c,
-                          params["g"], z_prev)
-                    return post_process(xphat, prm), z
 
         if z_prev is None:
             A, B, t = params["A2"], params["B2"], params["t2"]
@@ -245,7 +149,6 @@ class CDLNetCSRf2:
     t0: float = 0.0
     adaptive: bool = False
     scan_unroll: int = 1
-    backend: str = "xla"  # "xla" | "pallas" (fused CSR prox; differentiable)
 
     @property
     def pad(self) -> int:
@@ -265,87 +168,12 @@ class CDLNetCSRf2:
         return out
 
     def apply(self, params: dict, y, z_prev=None, z_after=None, sigma=None,
-              mask=None, return_z=True, train=False):
+              mask=None):
         """Denoise one frame batch with optional previous/following codes.
         The dispatch on neighbor availability is static (per-call), matching
-        the reference's per-iteration branch (model/net.py:544-564).
-
-        backend="pallas" maps the four dispatch cases onto the fused
-        kernel's prox modes: ST / one-sided prox_CSR (z_prev with g1, or
-        z_after with g2) / two-sided prox_CSR_f2 — neighbor codes ride
-        VMEM-resident next to the code being solved. train=True runs the
-        FULLY fused training path when the reverse kernel fits VMEM
-        (autodiff.csr_fused_2d_train; gradients flow to the params and
-        through the carried neighbor codes), else the XLA scan.
-        Native-resolution eval frames the resident kernel rejects run the
-        BANDED pair kernels with the prox in-kernel (see CDLNetCSR.apply)."""
+        the reference's per-iteration branch (model/net.py:544-564)."""
         yp, prm, mask = pre_process(y, self.s, mask=mask)
         c = sigma_scale(sigma, self.adaptive, 4)
-
-        if self.backend == "pallas":
-            from cdlnet_tpu.kernels.lista2d import (
-                lista2d_bwd_supported,
-                lista2d_fused_supported,
-            )
-
-            n_codes = (z_prev is not None) + (z_after is not None)
-            fwd_ok = lista2d_fused_supported(
-                self.M, self.C, self.P, self.s, self.K,
-                yp.shape[-2], yp.shape[-1], return_z=True, n_codes=n_codes,
-                hist=train,
-            )
-            run = None
-            if train and fwd_ok and lista2d_bwd_supported(
-                self.M, self.C, self.P, self.s, self.K,
-                yp.shape[-2], yp.shape[-1], n_codes=n_codes,
-            ):
-                from cdlnet_tpu.kernels.autodiff import csr_fused_2d_train
-
-                run = functools.partial(csr_fused_2d_train, stride=self.s)
-            elif not train and fwd_ok:
-                from cdlnet_tpu.kernels.autodiff import csr_fused_2d
-
-                run = functools.partial(csr_fused_2d, stride=self.s)
-            if run is not None:
-                kw = {}
-                if z_prev is not None:
-                    kw.update(g=params["g1"], z_prev=z_prev)
-                if z_after is not None:
-                    kw.update(g2=params["g2"], z_after=z_after)
-                xphat, z = run(yp, params["A"], params["B"], params["t"],
-                               c, mask=mask, **kw)
-                return post_process(xphat, prm), z
-            if not train:
-                # native-resolution eval frames: banded pair kernels with
-                # the CSR prox in-kernel (see CDLNetCSR.apply)
-                from cdlnet_tpu.kernels.lista2d_tiled import (
-                    lista2d_tiled,
-                    lista2d_tiled_supported,
-                )
-
-                if lista2d_tiled_supported(
-                    self.M, self.C, self.P, self.s, self.K,
-                    yp.shape[-2], yp.shape[-1], n_codes=n_codes,
-                ):
-                    from cdlnet_tpu.kernels.autodiff import (
-                        _RETURN_Z_HINT,
-                        nondifferentiable,
-                    )
-
-                    kw = {}
-                    if z_prev is not None:
-                        kw.update(g=params["g1"], z_prev=z_prev)
-                    if z_after is not None:
-                        kw.update(g2=params["g2"], z_after=z_after)
-                    names = sorted(kw)
-                    xphat, z = nondifferentiable(
-                        lambda yp, A, B, t, c, *vals: lista2d_tiled(
-                            yp, A, B, t, c, stride=self.s, mask=mask,
-                            return_z=True, **dict(zip(names, vals))),
-                        _RETURN_Z_HINT,
-                    )(yp, params["A"], params["B"], params["t"], c,
-                      *(kw[n] for n in names))
-                    return post_process(xphat, prm), z
 
         A, B, t = params["A"], params["B"], params["t"]
         g1, g2 = params["g1"], params["g2"]

@@ -127,8 +127,7 @@ class DnCNN:
         out = conv2d(h, params["w_out"], padding=self.pad) + params["b_out"][None, :, None, None]
         return out, {"bn_mean": means, "bn_var": vars_}
 
-    def apply(self, params, y, sigma=None, mask=None, state=None, train=False,
-              return_z=True):  # accepted for cross-model signature parity
+    def apply(self, params, y, sigma=None, mask=None, state=None, train=False):
         """Returns ((y - n, n), new_state). sigma/mask accepted for interface
         parity with CDLNet but unused (reference forward(*args, **kwargs))."""
         if state is None:
@@ -163,8 +162,7 @@ class FFDNet:
     def project(self, params: dict) -> dict:
         return params
 
-    def apply(self, params, y, sigma=None, mask=None, state=None, train=False,
-              return_z=True):  # accepted for cross-model signature parity
+    def apply(self, params, y, sigma=None, mask=None, state=None, train=False):
         """Returns ((xhat, noise_map), new_state).
 
         Matches the reference (model/net.py:721-730): the backbone output on

@@ -49,7 +49,6 @@ class GDLNet:
     adaptive: bool = False
     shared: str = ""
     scan_unroll: int = 1
-    backend: str = "xla"  # "xla" | "pallas" (inference; same kernel as CDLNet)
 
     @property
     def pad(self) -> int:
@@ -126,36 +125,11 @@ class GDLNet:
             out.append(jax.vmap(synth)(*args))
         return tuple(out)
 
-    def apply(self, params: dict, y, sigma=None, mask=None, return_z=True,
-              train=False):
-        """Denoise batch y (N, C, H, W). Returns (xhat, z).
-
-        backend="pallas": the Gabor banks are synthesized on device as
-        usual, then the unrolled loop runs through the same routing as
-        CDLNet (kernels/routing.route_lista2d): whole-K VMEM-resident
-        kernel, else the banded big-image kernels, else the XLA scan.
-        Same caveats as CDLNet.apply: the fused VJPs produce PARAMETER
-        gradients only (input/sigma/mask cotangents are zero — use
-        backend="xla" for input-gradient work); train=True picks a path
-        whose REVERSE kernel also fits (whole-image reverse for training
-        crops, the banded whole-reverse-resident kernel for big
-        lane-aligned crops, else the XLA scan); and on the banded path
-        (big images) return_z=True codes carry bfloat16 rounding (~0.5%
-        vs the fp32-exact whole-image kernel)."""
+    def apply(self, params: dict, y, sigma=None, mask=None):
+        """Denoise batch y (N, C, H, W). Returns (xhat, z)."""
         A_f, B_f = self.get_filters(params)
         yp, prm, mask = pre_process(y, self.s, mask=mask)
         c = sigma_scale(sigma, self.adaptive, 4)
-        if self.backend == "pallas":
-            from cdlnet_tpu.kernels.routing import route_lista2d
-
-            out = route_lista2d(
-                yp, A_f, B_f, params["t"], c,
-                M=self.M, C=self.C, P=self.P, s=self.s, K=self.K,
-                mask=mask, return_z=return_z, train=train,
-            )
-            if out is not None:
-                xphat, z = out
-                return post_process(xphat, prm), z
         z = lista_2d(
             yp, A_f, B_f, params["t"], c, mask=mask, stride=self.s, unroll=self.scan_unroll
         )

@@ -5,7 +5,7 @@ Estimates sigma as the sqrt of the smallest eigenvalue of the covariance of
 weak-texture patches, selected by thresholding the local gradient energy
 against a gamma-distribution quantile.
 
-TPU-native reshape: the reference shrinks the patch matrix by boolean
+Static-shape reshape: the reference shrinks the patch matrix by boolean
 indexing each iteration (data-dependent shapes); here selection is a 0/1
 weight vector applied inside the covariance product, keeping shapes static so
 the whole estimator jits. The 'break when too few patches' path becomes

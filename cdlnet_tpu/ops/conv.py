@@ -12,16 +12,16 @@ exactly via lhs_dilation: dilate the input by s, pad each spatial dim with
 channel-swapped kernel. The reference always uses p=(P-1)//2 (or P//2 per-dim
 in 3D) and op=s-1, giving exact sx upsampling (model/net.py:33,141).
 
-Everything lowers to lax.conv_general_dilated, which XLA tiles onto the MXU;
-the fused Pallas path lives in kernels/.
+Everything lowers to lax.conv_general_dilated. No precision is pinned here:
+the caller's jax.default_matmul_precision applies (on GPUs XLA's default
+may run float32 convs in TF32).
 
 Strided calls are transparently rewritten into the polyphase domain
 (ops/polyphase.py) whenever the shapes permit: stride-s conv and
 conv-transpose become stride-1 convs over space-to-depth phases, which (a)
-removes the lhs_dilation zero-stuffing that makes the synthesis ~5x slower
-than the analysis on TPU, and (b) multiplies the MXU contraction depth by
-s^nd. Exact rewrite — same outputs to fp32 tolerance. Disable with
-CDLNET_NO_POLYPHASE=1.
+removes the lhs_dilation zero-stuffing of the synthesis, and (b)
+multiplies the contraction depth by s^nd. Exact rewrite — same outputs to
+fp32 tolerance. Disable with CDLNET_NO_POLYPHASE=1.
 """
 
 from __future__ import annotations

@@ -1,11 +1,10 @@
 """Polyphase (space-to-depth) reformulation of the strided LISTA convs.
 
 The reference's stride-s analysis conv and conv-transpose synthesis
-(model/net.py:32-36, 85-87) are a terrible fit for the TPU as written: with
-C=1 input channels the MXU contraction dimension is starved, and XLA lowers
-the conv-transpose via lhs_dilation — correlating over an s^nd-times larger
-zero-stuffed input, so ~87% of its MACs multiply zeros (measured 5x slower
-than the analysis conv on v5e, tools/conv_experiments.py).
+(model/net.py:32-36, 85-87) are a poor fit for matrix units as written: with
+C=1 input channels the contraction dimension is starved, and XLA lowers the
+conv-transpose via lhs_dilation — correlating over an s^nd-times larger
+zero-stuffed input, so ~87% of its MACs (s=2, 3D) multiply zeros.
 
 Both operators are rewritten exactly in the polyphase domain: decompose the
 image into its s^nd stride-phases (space_to_depth), after which

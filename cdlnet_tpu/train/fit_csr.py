@@ -29,8 +29,17 @@ from cdlnet_tpu.data.noise import awgn
 from cdlnet_tpu.data.prefetch import device_prefetch
 from cdlnet_tpu.models import CDLNetCSRf2
 from cdlnet_tpu.train.checkpoint import save_ckpt
-from cdlnet_tpu.utils import append_metric
+from cdlnet_tpu.utils import append_metric, device_memory_bytes
 from cdlnet_tpu.train.optim import get_lr, set_lr
+
+
+def _csr_residual_bytes(model, batch_shape, n_applies):
+    """Estimated float32 residuals XLA autodiff keeps for one CSR train
+    step without remat: about three code-sized tensors (the code, the
+    pre-prox update and the prox's select masks) per iteration per apply."""
+    B, H, W = batch_shape[0], batch_shape[-2], batch_shape[-1]
+    code = B * model.M * -(-H // model.s) * -(-W // model.s) * 4
+    return n_applies * model.K * 3 * code
 
 
 def make_csr_train_step(model, opt, *, noise_std, project=False,
@@ -42,31 +51,18 @@ def make_csr_train_step(model, opt, *, noise_std, project=False,
     remat: rematerialize each of the 4-5 recurrence applies
     (jax.checkpoint), so the backward holds ONE apply's residuals at a
     time instead of all of them — the multi-apply residual volume is what
-    made native-resolution CSR training fail to COMPILE in both backends
-    (BASELINE r4, tools/bench_csr_bigframe.py). "auto" (default) remats
-    past ~100k pixels/frame — between the half-native 320x184 point that
-    compiles un-remat'd (and pays +21% for remat it doesn't need,
-    measured r5: 214.8 vs 177 ms/step) and the 640x368 native point that
-    cannot compile without it (978.5 ms/step WITH, r5). True/False
+    keeps native-resolution (640x368) CSR training from fitting a small
+    device. "auto" (default) remats when the estimated residuals of all
+    applies (_csr_residual_bytes) exceed half of device memory; True/False
     force."""
     nstd = tuple(noise_std) if isinstance(noise_std, (list, tuple)) else noise_std
     is_f2 = isinstance(model, CDLNetCSRf2)
 
     def _apply_for(batch):
         use_remat = remat if remat != "auto" else (
-            batch.shape[-2] * batch.shape[-1] > 100_000)
-        if not use_remat:
-            return model.apply
-
-        def inner(params, y, *ctx_and_sigma):
-            return model.apply(params, y, *ctx_and_sigma, train=True)
-
-        ck = jax.checkpoint(inner)
-
-        def apply(params, y, *ctx_and_sigma, train=True):
-            return ck(params, y, *ctx_and_sigma)
-
-        return apply
+            _csr_residual_bytes(model, batch.shape, 5 if is_f2 else 4)
+            > device_memory_bytes() // 2)
+        return jax.checkpoint(model.apply) if use_remat else model.apply
 
     def loss_fn(params, batch, key):
         apply = _apply_for(batch)
@@ -79,20 +75,20 @@ def make_csr_train_step(model, opt, *, noise_std, project=False,
         if not is_f2:
             z_curr = None
             # round 1: first-frame bank, then recurrence
-            prev_d, z_prev = apply(params, prev_hat, z_curr, s1, train=True)
-            curr_d, z_curr = apply(params, curr_hat, z_prev, s2, train=True)
+            prev_d, z_prev = apply(params, prev_hat, z_curr, s1)
+            curr_d, z_curr = apply(params, curr_hat, z_prev, s2)
             # round 2: now both carry codes
-            prev_d, z_prev = apply(params, prev_hat, z_curr, s1, train=True)
-            curr_d, z_curr = apply(params, curr_hat, z_prev, s2, train=True)
+            prev_d, z_prev = apply(params, prev_hat, z_curr, s1)
+            curr_d, z_curr = apply(params, curr_hat, z_prev, s2)
             return jnp.mean((prev_d - prev) ** 2) + jnp.mean((curr_d - curr) ** 2)
 
         after = batch[:, :, 2]
         after_hat, s3 = awgn(k3, after, nstd)
-        prev_d, z_prev = apply(params, prev_hat, None, None, s1, train=True)
-        curr_d, z_curr = apply(params, curr_hat, z_prev, None, s2, train=True)
-        after_d, z_after = apply(params, after_hat, z_prev, None, s3, train=True)
-        curr_d, z_curr = apply(params, curr_hat, z_prev, z_after, s2, train=True)
-        prev_d, z_prev = apply(params, prev_hat, None, z_after, s1, train=True)
+        prev_d, z_prev = apply(params, prev_hat, None, None, s1)
+        curr_d, z_curr = apply(params, curr_hat, z_prev, None, s2)
+        after_d, z_after = apply(params, after_hat, z_prev, None, s3)
+        curr_d, z_curr = apply(params, curr_hat, z_prev, z_after, s2)
+        prev_d, z_prev = apply(params, prev_hat, None, z_after, s1)
         return (
             jnp.mean((prev_d - prev) ** 2)
             + jnp.mean((curr_d - curr) ** 2)

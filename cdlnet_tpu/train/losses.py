@@ -62,7 +62,7 @@ def ssim(x, y, data_range=1.0, win_size=11, win_sigma=1.5):
     w = jnp.broadcast_to(win[None, None], (C, 1, win_size, win_size))
 
     def filt(v):
-        # HIGHEST precision: the TPU's default bf16 conv makes the
+        # HIGHEST precision: a bf16 or TF32 default conv makes the
         # E[x^2] - mu^2 cancellation below catastrophically wrong (variance
         # errors ~1e-3 flip the cs denominator negative and SSIM explodes)
         return lax.conv_general_dilated(

@@ -21,7 +21,7 @@ CASE = dict(
 def loss_for(model):
     def loss_fn(p, b, key):
         yb, xb = b
-        out, _ = model.apply(p, yb, 25.0, return_z=False)
+        out, _ = model.apply(p, yb, 25.0)
         return jnp.mean((out - xb) ** 2)
 
     return loss_fn

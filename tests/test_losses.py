@@ -1,6 +1,6 @@
 """SSIM correctness (train/losses.py).
 
-Regression for the TPU default-precision blowup: the window convs in ssim()
+Regression for a default-precision blowup: the window convs in ssim()
 must not compute E[x^2] - mu^2 in bf16 — on smooth, near-flat images the
 cancellation error flips the cs denominator negative and the SSIM "mean"
 leaves [-1, 1] (observed: 6.7 at sigma=35 on synthetic MRI volumes).

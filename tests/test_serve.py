@@ -87,7 +87,7 @@ def test_from_args_with_ckpt(tmp_path):
         "paths": {"ckpt": ckpt},
         "train": {},
     }
-    d = Denoiser.from_args(json.loads(json.dumps(args)), backend="xla")
+    d = Denoiser.from_args(json.loads(json.dumps(args)))
     out = d.denoise_image(np.zeros((32, 32), np.float32), sigma=25)
     assert out.shape == (32, 32)
 
@@ -111,7 +111,7 @@ def test_from_dir_reanchors_moved_checkpoint(tmp_path):
     with open(dst / "args.json", "w") as f:
         json.dump(args, f)
 
-    d = Denoiser.from_dir(str(dst), backend="xla")
+    d = Denoiser.from_dir(str(dst))
     rng = np.random.default_rng(0)
     # in-distribution smooth field: per-PIXEL frequency as in the training
     # corpus (a size-relative grid would compress the pattern into texture
@@ -128,8 +128,8 @@ def test_from_dir_reanchors_moved_checkpoint(tmp_path):
 
 
 def test_from_args_backendless_models():
-    """from_args must not inject 'backend' into model families without one
-    (DnCNN/FFDNet/CSR), and their forwards must run through the wrapper."""
+    """Model families without a LISTA dictionary (DnCNN) build through
+    from_args and their forwards run through the wrapper."""
     args = {"type": "DnCNN", "model": {"K": 3, "M": 8},
             "paths": {"ckpt": None}, "train": {}}
     d = Denoiser.from_args(json.loads(json.dumps(args)))
@@ -198,12 +198,11 @@ def test_mesh_sharded_batch_serving():
 
 
 def test_non_xla_errors_propagate_without_backend_demotion():
-    """Only XLA/Mosaic runtime errors trigger the pallas->xla serving
-    fallback; any other exception propagates and the backend stays pallas
-    (serve.py _run). VERDICT r1 weak #4."""
+    """Every failure of the forward propagates — an XLA runtime error
+    (e.g. out of memory) included. Serving never swaps in another path
+    behind the caller's back (serve.py _run)."""
     model = build_model(
-        "CDLNet", {"K": 2, "M": 6, "P": 5, "s": 2, "adaptive": True,
-                   "backend": "pallas"}
+        "CDLNet", {"K": 2, "M": 6, "P": 5, "s": 2, "adaptive": True}
     )
     params = model.init(jax.random.PRNGKey(0), init=True)
     d = Denoiser(model, params, bucket=32)
@@ -218,13 +217,10 @@ def test_non_xla_errors_propagate_without_backend_demotion():
     img = np.zeros((32, 32), np.float32)
     with pytest.raises(Boom):
         d.denoise_image(img, sigma=25)
-    assert d.model.backend == "pallas"  # no silent demotion
 
-    # an XlaRuntimeError-shaped failure DOES demote and retry on xla
     def xla_oom_fwd(p, y, s):
-        raise jax.errors.JaxRuntimeError("RESOURCE_EXHAUSTED: vmem")
+        raise jax.errors.JaxRuntimeError("RESOURCE_EXHAUSTED: out of memory")
 
     d._fwd = xla_oom_fwd
-    out = d.denoise_image(img, sigma=25)
-    assert out.shape == (32, 32)
-    assert d.model.backend == "xla"
+    with pytest.raises(jax.errors.JaxRuntimeError):
+        d.denoise_image(img, sigma=25)

@@ -130,8 +130,7 @@ def test_pipelined_streaming_matches_sequential():
     np.testing.assert_allclose(got, ref, atol=1e-6)
     # short clip: single whole-clip forward
     short = clip[:, :, :8]
-    ref_s = np.asarray(model.apply(params, jnp.asarray(short), 25.0,
-                                   return_z=False)[0])
+    ref_s = np.asarray(model.apply(params, jnp.asarray(short), 25.0)[0])
     got_s = denoise_long_video_pipelined(model, params, short, 25.0,
                                          chunk_depth=8, overlap=2)
     np.testing.assert_allclose(got_s, ref_s, atol=1e-6)

@@ -1,15 +1,14 @@
 #!/usr/bin/env python3
-"""2D eval throughput: images/sec at the trained_nets/CDLNet-s2030 config
-(K=30 M=169 P=7 s=2 adaptive) on 256x256 grayscale @ sigma=25 — ours via
-serve.Denoiser (fused kernels, bucketed), the reference via its PyTorch
-CDLNet on CPU (the hardware the reference repo actually ran eval on here).
+"""2D serving throughput: images/sec through serve.Denoiser at the
+trained_nets/CDLNet-s2030 config (K=30 M=169 P=7 s=2 adaptive) on 256x256
+grayscale at sigma=25, host round-trip included.
 
-Usage: python tools/bench2d.py [--torch-only|--jax-only]
+Usage: python tools/bench2d.py
 """
 
 from __future__ import annotations
 
-import sys
+import statistics
 import time
 
 import numpy as np
@@ -19,7 +18,7 @@ SIZE = 256
 SIGMA = 25.0
 
 
-def bench_jax():
+def bench():
     from cdlnet_tpu.utils import setup_compilation_cache
 
     setup_compilation_cache()
@@ -29,7 +28,7 @@ def bench_jax():
     from cdlnet_tpu.models import build_model
     from cdlnet_tpu.serve import Denoiser
 
-    model = build_model("CDLNet", dict(CFG, backend="pallas"))
+    model = build_model("CDLNet", dict(CFG))
     params = model.init(jax.random.PRNGKey(0), init=False)
     params = {
         "A": params["A"] * 0.02, "B": params["B"] * 0.02,
@@ -39,53 +38,17 @@ def bench_jax():
     rng = np.random.default_rng(0)
     img = rng.uniform(0, 1, (SIZE, SIZE)).astype(np.float32)
     d.denoise_image(img, sigma=SIGMA)  # compile
-    n = 30
-    t0 = time.time()
-    for _ in range(n):
-        d.denoise_image(img, sigma=SIGMA)
-    dt = (time.time() - t0) / n
-    print(f"cdlnet_tpu serve: {1/dt:.1f} images/s ({dt*1e3:.1f} ms/image, "
-          f"{SIZE}x{SIZE}, incl. host round-trip)")
-    return 1 / dt
-
-
-def bench_torch():
-    import types
-
-    sys.path.insert(0, "/root/reference")
-    import torch
-
-    tv = types.ModuleType("torchvision")
-    tv_tf = types.ModuleType("torchvision.transforms")
-    tv_tff = types.ModuleType("torchvision.transforms.functional")
-    tv_tff.to_tensor = lambda x: x
-    tv.transforms = tv_tf
-    tv_tf.functional = tv_tff
-    sys.modules.setdefault("torchvision", tv)
-    sys.modules.setdefault("torchvision.transforms", tv_tf)
-    sys.modules.setdefault("torchvision.transforms.functional", tv_tff)
-    from model.net import CDLNet as TorchCDLNet
-
-    net = TorchCDLNet(**CFG, init=False)
-    net.eval()
-    x = torch.rand(1, 1, SIZE, SIZE)
-    with torch.no_grad():
-        net(x, torch.tensor(SIGMA))  # warm
-        n = 5
-        t0 = time.time()
-        for _ in range(n):
-            net(x, torch.tensor(SIGMA))
-        dt = (time.time() - t0) / n
-    print(f"reference torch-CPU: {1/dt:.2f} images/s ({dt*1e3:.0f} ms/image)")
+    times = []
+    for _ in range(30):
+        t0 = time.perf_counter()
+        d.denoise_image(img, sigma=SIGMA)  # returns a host array
+        times.append(time.perf_counter() - t0)
+    dt = statistics.median(times)
+    dev = jax.devices()[0]
+    print(f"serve {SIZE}x{SIZE}: {1/dt:.1f} images/s ({dt*1e3:.2f} ms/image "
+          f"median of {len(times)}) on {dev.platform} {dev.device_kind}")
     return 1 / dt
 
 
 if __name__ == "__main__":
-    if "--torch-only" in sys.argv:
-        bench_torch()
-    elif "--jax-only" in sys.argv:
-        bench_jax()
-    else:
-        j = bench_jax()
-        t = bench_torch()
-        print(f"speedup: {j/t:.0f}x")
+    bench()

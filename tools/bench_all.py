@@ -1,17 +1,18 @@
 #!/usr/bin/env python3
-"""Run the whole benchmark matrix in one go and write BENCHMATRIX.json.
+"""Run the whole benchmark matrix in one go.
 
-Each entry is a subprocess (fresh backend state, one wedged bench can't
-poison the rest; every child gets a timeout). Intended for a quick
-post-change sweep on the real TPU:
+Each entry is a subprocess, run one at a time so one JAX process holds the
+card (a JAX process reserves most of the card's memory at first use); a
+wedged bench cannot poison the rest, and every child gets a timeout.
 
-    python tools/bench_all.py            # full matrix
-    python tools/bench_all.py flagship   # just the headline number
+    python tools/bench_all.py                       # full matrix
+    python tools/bench_all.py flagship              # just the headline
+    python tools/bench_all.py --out results.json    # also write JSON
 
 Matrix:
   flagship   bench.py (3D eval throughput, the driver's headline metric)
   train      tools/bench_train_step.py 2d video (flagship train steps)
-  train-big  tools/bench_train_step.py 2d-256 2d-512 (banded reverse)
+  train-big  tools/bench_train_step.py 2d-256 2d-512 (big crops)
   train-more tools/bench_train_step.py mri jdd gdlnet dncnn ffdnet
   eval2d     tools/bench2d.py --jax-only (2D serving throughput)
 """
@@ -44,15 +45,20 @@ MATRIX = {
         3600,
     ),
     "eval2d": (
-        [sys.executable, os.path.join(ROOT, "tools", "bench2d.py"),
-         "--jax-only"],
+        [sys.executable, os.path.join(ROOT, "tools", "bench2d.py")],
         1200,
     ),
 }
 
 
 def main():
-    names = sys.argv[1:] or list(MATRIX)
+    args = sys.argv[1:]
+    out = None
+    if "--out" in args:
+        i = args.index("--out")
+        out = args[i + 1]
+        del args[i:i + 2]
+    names = args or list(MATRIX)
     results = {}
     for name in names:
         cmd, budget = MATRIX[name]
@@ -73,10 +79,10 @@ def main():
         except subprocess.TimeoutExpired:
             results[name] = {"rc": "timeout", "sec": budget, "tail": []}
             print(f"{name}: TIMEOUT after {budget}s", flush=True)
-    out = os.path.join(ROOT, "BENCHMATRIX.json")
-    with open(out, "w") as f:
-        json.dump({"ts": time.time(), "results": results}, f, indent=2)
-    print(f"wrote {out}")
+    if out is not None:
+        with open(out, "w") as f:
+            json.dump({"ts": time.time(), "results": results}, f, indent=2)
+        print(f"wrote {out}")
     return 0 if all(r.get("rc") == 0 for r in results.values()) else 1
 
 

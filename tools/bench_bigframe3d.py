@@ -1,17 +1,13 @@
 #!/usr/bin/env python3
-"""Big-frame 3D inference timing: what do DAVIS-native (480x854) and
-fastMRI-native (30x640x368) volumes cost on each backend?
+"""Big-frame 3D inference timing: what do DAVIS-native (16x480x854) and
+fastMRI-native (30x640x368) volumes cost?
 
 These are the reference's own eval workloads (analyze3d.py:77-161 on DAVIS
-dirs; analyzemri.py:185-298 on k-space volumes) at NATIVE resolution —
-frames too big for the fused-pair VMEM gate fall back to the XLA polyphase
-path today. This tool pins the XLA cost (the target a banded 3D kernel has
-to beat) and, at the largest pair-supported size, the pair-vs-XLA ratio.
+dirs; analyzemri.py:185-298 on k-space volumes) at NATIVE resolution. Each
+clip's forward is timed on the host clock around a call that ends in
+block_until_ready (median of 5, after a compile call and a warm-up).
 
-Protocol: bench.py's honest timing (R clips inside one jitted scan, single
-readback, RTT measured and subtracted, median of rounds).
-
-Usage: python tools/bench_bigframe3d.py [davis mri pair432 ...]
+Usage: python tools/bench_bigframe3d.py [davis mri half ...]
 """
 
 from __future__ import annotations
@@ -20,86 +16,59 @@ import sys
 import time
 
 CASES = {
-    # name: (model args, clip shape, backends)
+    # name: (model args, clip shape)
     "davis": (
         {"K": 30, "M": 169, "P": (7, 7, 5), "s": 2, "C": 1, "adaptive": True,
          "depth": 16},
         (1, 1, 16, 480, 854),
-        ("xla", "pallas"),
     ),
     "mri": (
         {"K": 30, "M": 169, "P": (9, 9, 5), "s": 2, "C": 1, "adaptive": True,
          "depth": 30},
         (1, 1, 30, 640, 368),
-        ("xla", "pallas"),
     ),
-    # largest pair-supported frame at the DAVIS aspect: pins the fused-vs-XLA
-    # ratio the banded kernel should roughly reproduce at bigger frames
-    "pair432": (
+    "half": (
         {"K": 30, "M": 169, "P": (7, 7, 5), "s": 2, "C": 1, "adaptive": True,
          "depth": 16},
         (1, 1, 16, 240, 432),
-        ("xla", "pallas"),
     ),
 }
 
 
-def bench_case(name, margs, clip, backends, R=10):
+def bench_case(name, margs, clip, reps=5):
+    import statistics
+
     import jax
     import jax.numpy as jnp
 
     from cdlnet_tpu.models import build_model
 
-    key = jax.random.PRNGKey(1)
-    noisy = jax.random.uniform(key, clip, jnp.float32)
-
-    zero = jnp.zeros(())
-    float(zero + 0)
-    rtts = []
-    for _ in range(5):
-        t0 = time.time()
-        float(zero + 1)
-        rtts.append(time.time() - t0)
-    rtt = sorted(rtts)[len(rtts) // 2]
-
-    for backend in backends:
-        model = build_model("CDLNetVideo", dict(margs, backend=backend))
-        params = model.init(jax.random.PRNGKey(0), init=False)
-        params["A"] = params["A"] * 0.02
-        params["B"] = params["B"] * 0.02
-        params["t"] = jnp.abs(params["t"]) + 1e-3
-
-        @jax.jit
-        def run(p, y):
-            def body(c, _):
-                out = model.apply(p, c, 25.0, return_z=False)[0]
-                return y + 0.0 * jnp.mean(out), jnp.mean(out)
-            _, outs = jax.lax.scan(body, y, None, length=R)
-            return jnp.sum(outs)
-
-        for _ in range(2):
-            float(run(params, noisy))
-        times = []
-        for _ in range(5):
-            t0 = time.time()
-            float(run(params, noisy))
-            times.append((time.time() - t0 - rtt) / R)
-        dt = sorted(times)[len(times) // 2]
-        frames = clip[0] * clip[2]
-        print(
-            f"{name:8s} backend={backend:6s} {dt * 1e3:8.1f} ms/clip "
-            f"= {frames / dt:7.1f} frames/s  ({clip[2]}x{clip[3]}x{clip[4]})"
-        )
+    noisy = jax.random.uniform(jax.random.PRNGKey(1), clip, jnp.float32)
+    model = build_model("CDLNetVideo", dict(margs))
+    params = model.init(jax.random.PRNGKey(0), init=False)
+    params["A"] = params["A"] * 0.02
+    params["B"] = params["B"] * 0.02
+    params["t"] = jnp.abs(params["t"]) + 1e-3
+    fwd = jax.jit(lambda p, y: model.apply(p, y, 25.0)[0])
+    for _ in range(2):  # compile, warm up
+        fwd(params, noisy).block_until_ready()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fwd(params, noisy).block_until_ready()
+        times.append(time.perf_counter() - t0)
+    dt = statistics.median(times)
+    frames = clip[0] * clip[2]
+    print(f"{name:6s} {dt * 1e3:8.1f} ms/clip = {frames / dt:7.1f} frames/s "
+          f"({clip[2]}x{clip[3]}x{clip[4]})")
 
 
 def main():
     from cdlnet_tpu.utils import setup_compilation_cache
 
     setup_compilation_cache()
-    names = sys.argv[1:] or list(CASES)
-    for n in names:
-        margs, clip, backends = CASES[n]
-        bench_case(n, margs, clip, backends)
+    for n in sys.argv[1:] or list(CASES):
+        bench_case(n, *CASES[n])
 
 
 if __name__ == "__main__":

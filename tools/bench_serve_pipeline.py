@@ -1,11 +1,9 @@
 #!/usr/bin/env python3
 """End-to-end native-resolution serving: serialized whole-clip vs
-host-pipelined chunks (VERDICT r4 #8).
+host-pipelined chunks.
 
-The r4 row measured serve.Denoiser.denoise_video on a DAVIS-native
-16x480x854 clip at 1.93 s wall against 144.7 ms of device compute — the
-~26 MB of H2D + D2H and the compute were strictly serialized. The
-pipelined path (models/streaming.denoise_long_video_pipelined, wired into
+A whole DAVIS-native 16x480x854 clip through serve.Denoiser.denoise_video
+serializes its ~26 MB of H2D + D2H with the compute. The pipelined path (models/streaming.denoise_long_video_pipelined, wired into
 denoise_video's chunk route) dispatches each chunk's H2D and forward
 asynchronously and fetches lazily, so transfers and compute overlap and
 wall approaches max(transfer, compute).
@@ -38,7 +36,7 @@ def main():
     model = build_model(
         "CDLNetVideo",
         {"K": 30, "M": 169, "P": (7, 7, 5), "s": 2, "C": 1,
-         "adaptive": True, "depth": D, "backend": "pallas"},
+         "adaptive": True, "depth": D},
     )
     params = model.init(jax.random.PRNGKey(0), init=True)
     d = Denoiser(model, params, bucket=2)

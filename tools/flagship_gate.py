@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Flagship-scale PSNR parity gate (BASELINE.json; VERDICT r1 next-round #4).
+"""Flagship-scale PSNR parity gate (PSNR delta vs. reference <= 0.05 dB).
 
 Trains the FLAGSHIP 2D config (trained_nets/CDLNet-s2030/args.json: CDLNet
 K=30 M=169 P=7 s=2 adaptive, sigma in [20,30], batch 10 x 128^2 crops,
@@ -21,15 +21,15 @@ arithmetic, fp32 reassociation) — which is exactly what the gate measures.
 Gates (written to FLAGSHIP_GATE.md at repo root by `eval`):
   1. EVAL parity: the torch-trained checkpoint imported into cdlnet_tpu
      must reproduce torch's test PSNR within 0.05 dB (same noise
-     realizations), on both the xla and pallas backends. This is the
-     BASELINE.json "PSNR delta vs. reference" gate at flagship scale.
+     realizations): the "PSNR delta vs. reference" gate at flagship
+     scale.
   2. TRAIN parity: cdlnet_tpu trained from the same init/data/noise for
      the same steps lands within tolerance of torch's test PSNR.
 
 Usage:
   python tools/flagship_gate.py gen        [workdir]
   python tools/flagship_gate.py torch-train STEPS [workdir]   # hours on 1 CPU
-  python tools/flagship_gate.py jax-train  STEPS [workdir]    # minutes on TPU
+  python tools/flagship_gate.py jax-train  STEPS [workdir]    # minutes on a GPU
   python tools/flagship_gate.py eval       [workdir]
 workdir defaults to /tmp/flagship_gate.
 """
@@ -198,7 +198,7 @@ def torch_eval(workdir, ckpt_name="torch_net.ckpt"):
 # ---------------------------------------------------------------------------
 
 
-def _build_jax(workdir, backend="pallas", init_ckpt="init.ckpt"):
+def _build_jax(workdir, init_ckpt="init.ckpt"):
     import jax
 
     from cdlnet_tpu.compat import import_net_state, load_torch_checkpoint
@@ -207,19 +207,19 @@ def _build_jax(workdir, backend="pallas", init_ckpt="init.ckpt"):
 
     setup_compilation_cache()
     model = build_model(
-        "CDLNet", {"K": K, "M": M, "P": P, "s": S, "adaptive": True, "backend": backend}
+        "CDLNet", {"K": K, "M": M, "P": P, "s": S, "adaptive": True}
     )
     ckpt = load_torch_checkpoint(os.path.join(workdir, init_ckpt))
     params = import_net_state(model, ckpt["net_state_dict"])
     return model, params
 
 
-def jax_train(workdir, steps, backend="pallas"):
+def jax_train(workdir, steps):
     import jax
     import jax.numpy as jnp
     import optax
 
-    model, params = _build_jax(workdir, backend=backend)  # torch init weights
+    model, params = _build_jax(workdir)  # torch init weights
     opt = optax.chain(optax.clip_by_global_norm(CLIP), optax.adam(LR))
     st = opt.init(params)
     lr_scale = 1.0
@@ -227,7 +227,7 @@ def jax_train(workdir, steps, backend="pallas"):
     @jax.jit
     def step(p, st, x, y, sigma):
         def loss_fn(p):
-            xhat, _ = model.apply(p, y, sigma, return_z=False)
+            xhat, _ = model.apply(p, y, sigma)
             return jnp.mean((xhat - x) ** 2)
 
         loss, g = jax.value_and_grad(loss_fn)(p)
@@ -261,17 +261,17 @@ def jax_train(workdir, steps, backend="pallas"):
     save_ckpt(os.path.join(workdir, "jax_net.ckpt.npz"), params, steps)
 
 
-def jax_eval(workdir, source, backend="xla"):
+def jax_eval(workdir, source):
     """source: 'torch' (import torch_net.ckpt) or 'jax' (our trained npz)."""
     import jax
     import jax.numpy as jnp
 
     if source == "torch":
-        model, params = _build_jax(workdir, backend=backend, init_ckpt="torch_net.ckpt")
+        model, params = _build_jax(workdir, init_ckpt="torch_net.ckpt")
     else:
         from cdlnet_tpu.train.checkpoint import load_ckpt
 
-        model, params = _build_jax(workdir, backend=backend)  # template from init
+        model, params = _build_jax(workdir)  # template from init
         params, _, _, _ = load_ckpt(os.path.join(workdir, "jax_net.ckpt.npz"), params)
 
     imgs = load_split(workdir, "test")
@@ -317,13 +317,11 @@ def main():
         rows = [("noisy input", noisy)]
         tp = torch_eval(workdir)
         rows.append(("torch-trained, torch inference", tp))
-        for backend in ("xla", "pallas"):
-            jp = jax_eval(workdir, "torch", backend=backend)
-            rows.append((f"torch-trained, cdlnet_tpu {backend} inference", jp))
+        jp = jax_eval(workdir, "torch")
+        rows.append(("torch-trained, cdlnet_tpu inference", jp))
         if os.path.exists(os.path.join(workdir, "jax_net.ckpt.npz")):
-            for backend in ("xla",):
-                jt = jax_eval(workdir, "jax", backend=backend)
-                rows.append((f"cdlnet_tpu-trained ({backend} eval)", jt))
+            jt = jax_eval(workdir, "jax")
+            rows.append(("cdlnet_tpu-trained", jt))
         print()
         for name, val in rows:
             print(f"{name:50s} {val:.3f} dB")

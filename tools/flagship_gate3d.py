@@ -1,7 +1,6 @@
 #!/usr/bin/env python3
 """Flagship-scale VIDEO PSNR parity gate vs the reference torch code
-(BASELINE.json: "PSNR delta vs. reference, grayscale video @ sigma=25
-<= 0.05 dB"; VERDICT r2 next-round #2).
+("PSNR delta vs. reference, grayscale video @ sigma=25 <= 0.05 dB").
 
 Runs the args3d.json config (CDLNetVideo K=30 M=169 P=(7,7,5) s=2,
 depth 16, batch 2 x 16x128x128 clips, Adam lr 7e-5, clip_grad 1
@@ -20,10 +19,9 @@ and cdlnet_tpu, removing every nuisance difference:
 
 Gates (appended to FLAGSHIP_GATE.md by `eval`):
   1. EVAL parity: the torch-trained checkpoint through cdlnet_tpu
-     inference (xla AND pallas backends) must match torch's test PSNR on
-     identical clips/noise @ sigma=25 within 0.05 dB. This is the
-     BASELINE.json video gate (analyze3d.py:77-161 protocol: clip PSNR
-     from 5D MSE).
+     inference must match torch's test PSNR on
+     identical clips/noise @ sigma=25 within 0.05 dB (analyze3d.py:77-161
+     protocol: clip PSNR from 5D MSE).
   2. TRAIN parity (smoke): cdlnet_tpu trained from the same init/data/
      noise for the same steps lands within tolerance of torch's PSNR.
      torch-CPU costs ~4 min/step on this 1-core host, so the step count
@@ -32,7 +30,7 @@ Gates (appended to FLAGSHIP_GATE.md by `eval`):
 Usage:
   python tools/flagship_gate3d.py gen        [workdir]
   python tools/flagship_gate3d.py torch-train STEPS [workdir]  # ~4 min/step CPU
-  python tools/flagship_gate3d.py jax-train  STEPS [workdir]   # seconds on TPU
+  python tools/flagship_gate3d.py jax-train  STEPS [workdir]   # seconds on a GPU
   python tools/flagship_gate3d.py eval       [workdir]
 workdir defaults to /tmp/flagship_gate3d.
 """
@@ -219,7 +217,7 @@ def torch_eval(workdir, ckpt_name="torch_net.ckpt"):
 # ---------------------------------------------------------------------------
 
 
-def _build_jax(workdir, backend="pallas", init_ckpt="init.ckpt"):
+def _build_jax(workdir, init_ckpt="init.ckpt"):
     from cdlnet_tpu.compat import import_net_state, load_torch_checkpoint
     from cdlnet_tpu.models import build_model
     from cdlnet_tpu.utils import setup_compilation_cache
@@ -227,27 +225,26 @@ def _build_jax(workdir, backend="pallas", init_ckpt="init.ckpt"):
     setup_compilation_cache()
     model = build_model(
         "CDLNetVideo",
-        {"K": K, "M": M, "P": P, "s": S, "C": 1, "adaptive": True, "depth": D,
-         "backend": backend},
+        {"K": K, "M": M, "P": P, "s": S, "C": 1, "adaptive": True, "depth": D},
     )
     ckpt = load_torch_checkpoint(os.path.join(workdir, init_ckpt))
     params = import_net_state(model, ckpt["net_state_dict"])
     return model, params
 
 
-def jax_train(workdir, steps, backend="pallas"):
+def jax_train(workdir, steps):
     import jax
     import jax.numpy as jnp
     import optax
 
-    model, params = _build_jax(workdir, backend=backend)  # torch init weights
+    model, params = _build_jax(workdir)  # torch init weights
     opt = optax.chain(optax.clip_by_global_norm(CLIP), optax.adam(LR))
     st = opt.init(params)
 
     @jax.jit
     def step(p, st, x, y, sigma):
         def loss_fn(p):
-            xhat, _ = model.apply(p, y, sigma, return_z=False, train=True)
+            xhat, _ = model.apply(p, y, sigma)
             return jnp.mean((xhat - x) ** 2)
 
         loss, g = jax.value_and_grad(loss_fn)(p)
@@ -277,23 +274,22 @@ def jax_train(workdir, steps, backend="pallas"):
     save_ckpt(os.path.join(workdir, "jax_net.ckpt.npz"), params, steps)
 
 
-def jax_eval(workdir, source, backend="xla"):
+def jax_eval(workdir, source):
     import jax
     import jax.numpy as jnp
 
     if source == "torch":
-        model, params = _build_jax(workdir, backend=backend,
-                                   init_ckpt="torch_net.ckpt")
+        model, params = _build_jax(workdir, init_ckpt="torch_net.ckpt")
     else:
         from cdlnet_tpu.train.checkpoint import load_ckpt
 
-        model, params = _build_jax(workdir, backend=backend)
+        model, params = _build_jax(workdir)
         params, _, _, _ = load_ckpt(
             os.path.join(workdir, "jax_net.ckpt.npz"), params)
 
     clips = load_clips(workdir, "test")
     eps = test_noise(clips)
-    fwd = jax.jit(lambda p, y: model.apply(p, y, TEST_SIGMA, return_z=False)[0])
+    fwd = jax.jit(lambda p, y: model.apply(p, y, TEST_SIGMA)[0])
     vals = []
     for c, e in zip(clips, eps):
         y = jnp.asarray(c[None]) + TEST_SIGMA / 255.0 * jnp.asarray(e[None])
@@ -317,7 +313,7 @@ def main():
             workdir = a
 
     if cmd == "streaming-curve":
-        # overlap -> PSNR on TRAINED thresholds (VERDICT r2 #2 tail): the
+        # overlap -> PSNR on TRAINED thresholds: the
         # streaming docs claim trained thresholds decay chunk-boundary
         # error faster than random-init ones; measure it on the gate's
         # trained checkpoint against whole-clip processing.
@@ -331,12 +327,11 @@ def main():
         if src == "jax":
             from cdlnet_tpu.train.checkpoint import load_ckpt
 
-            model, params = _build_jax(workdir, backend="xla")
+            model, params = _build_jax(workdir)
             params, _, _, _ = load_ckpt(
                 os.path.join(workdir, "jax_net.ckpt.npz"), params)
         else:
-            model, params = _build_jax(workdir, backend="xla",
-                                       init_ckpt="torch_net.ckpt")
+            model, params = _build_jax(workdir, init_ckpt="torch_net.ckpt")
         # one long clip: the gate test clips tiled along depth (64 frames)
         clips = load_clips(workdir, "test")
         long = np.concatenate([clips[i] for i in range(4)], axis=1)[None]
@@ -344,7 +339,7 @@ def main():
         noisy = long + TEST_SIGMA / 255.0 * rng.standard_normal(
             long.shape).astype(np.float32)
         full = np.asarray(jax.jit(
-            lambda p, y: model.apply(p, y, TEST_SIGMA, return_z=False)[0]
+            lambda p, y: model.apply(p, y, TEST_SIGMA)[0]
         )(params, jnp.asarray(noisy)))
         base = psnr(full, long)
         print(f"whole-clip ({long.shape[2]} frames) PSNR {base:.3f} dB "
@@ -377,12 +372,11 @@ def main():
         rows = [("noisy input", noisy)]
         tp = torch_eval(workdir)
         rows.append(("torch-trained, torch inference", tp))
-        for backend in ("xla", "pallas"):
-            jp = jax_eval(workdir, "torch", backend=backend)
-            rows.append((f"torch-trained, cdlnet_tpu {backend} inference", jp))
+        jp = jax_eval(workdir, "torch")
+        rows.append(("torch-trained, cdlnet_tpu inference", jp))
         if os.path.exists(os.path.join(workdir, "jax_net.ckpt.npz")):
-            jt = jax_eval(workdir, "jax", backend="xla")
-            rows.append(("cdlnet_tpu-trained (xla eval)", jt))
+            jt = jax_eval(workdir, "jax")
+            rows.append(("cdlnet_tpu-trained", jt))
         print()
         for name, val in rows:
             print(f"{name:50s} {val:.3f} dB")

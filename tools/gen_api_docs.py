@@ -30,8 +30,6 @@ MODULES = [
     "cdlnet_tpu.models.csr",
     "cdlnet_tpu.models.dncnn",
     "cdlnet_tpu.models.streaming",
-    "cdlnet_tpu.kernels.routing",
-    "cdlnet_tpu.kernels.autodiff",
     "cdlnet_tpu.nle",
     "cdlnet_tpu.data.images",
     "cdlnet_tpu.data.video",

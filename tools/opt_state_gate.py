@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Optimizer-state import gate (VERDICT r3 #5).
+"""Optimizer-state import gate.
 
 Validates, against the LIVE reference modules in /root/reference:
   1. compat.param_order reproduces `net.parameters()` ordering for every
@@ -189,7 +189,7 @@ def check_resume(ref_dir):
         jy, jxc = jnp.asarray(y), jnp.asarray(x)
 
         def loss_fn(p):
-            out = model.apply(p, jy, 25.0, return_z=False)
+            out = model.apply(p, jy, 25.0)
             return jnp.mean((out[0] - jxc) ** 2)
 
         jloss, grads = jax.value_and_grad(loss_fn)(params)

@@ -1,13 +1,13 @@
 #!/usr/bin/env python3
 """Break down flagship CDLNetVideo forward time on the current backend.
 
-Times (steady-state, per-call readback like bench.py):
+Times (steady-state, each call ends in a host readback):
   - one analysis conv3d (C->M, stride s)
   - one synthesis conv_transpose3d (M->C, stride s)
   - the full K-iteration forward
   - optional bf16 variants
-to locate where the 178ms/clip (fp32 baseline) goes and what the per-op
-speed of light looks like. Usage: python tools/profile_forward.py [K]
+to locate where the forward's time goes and what the per-op speed of
+light looks like. Usage: python tools/profile_forward.py [K]
 """
 
 from __future__ import annotations
